@@ -8,7 +8,7 @@ Mirrors the reference's comparison-method registry
 import numpy as np
 import pytest
 
-from ans_tpu import models
+from lane_ans import models
 
 
 def _roundtrip(name, values):
@@ -35,7 +35,7 @@ def test_splitters(datasets, name, data):
 def test_entropy_coders(datasets, name):
     v = datasets["zipf12"][:8000]
     blob = _roundtrip(name, v)
-    from ans_tpu.utils import metrics
+    from lane_ans.utils import metrics
     h0 = metrics.compute_entropy(v)
     if name in ("shuff", "arith"):
         # direct symbol coders should land near H0 (+ prelude slack)
@@ -55,7 +55,7 @@ def test_composites(datasets, name):
 def test_vbyte_bytes_exact():
     """vbyte wire format matches the scalar golden vbyte
     (include/vbyte.hpp:32-95)."""
-    from ans_tpu.reference_model import vbyte as vb
+    from lane_ans.reference_model import vbyte as vb
     vals = np.array([0, 1, 127, 128, 300, 1 << 20, (1 << 32) - 1],
                     dtype=np.uint32)
     blob = models.get("vbyte").encode(vals)
@@ -71,7 +71,7 @@ def test_optpfor_beats_vbyte_on_packed_data(rng):
 
 
 def test_entropy_only(datasets):
-    from ans_tpu.utils import metrics
+    from lane_ans.utils import metrics
     v = datasets["zipf12"]
     blob = models.get("entropy_only").encode(v)
     assert len(blob) == int(np.ceil(
@@ -92,8 +92,8 @@ def test_shuff_rejects_corrupt_wire():
     """Forged header max_len must not drive the >16-bit scan past the
     canonical tables, and truncated payloads must raise on BOTH
     backends (the zero-refilled accumulator can keep 'matching')."""
-    import ans_tpu.models.shuff as sh
-    from ans_tpu.reference_model import vbyte
+    import lane_ans.models.shuff as sh
+    from lane_ans.reference_model import vbyte
     vals = (np.random.default_rng(3).zipf(1.3, 5000) - 1).astype(
         np.uint32)
     c = sh.Shuff()
@@ -123,7 +123,7 @@ def test_arith_native_matches_python_wire():
     arith_decode) must emit and consume byte-identical streams to the
     Python fallback, including the pow2-total shift and the 16-bit
     jump-table search."""
-    import ans_tpu.models.arith as am
+    import lane_ans.models.arith as am
     rng = np.random.default_rng(17)
     for vals in (
         (rng.zipf(1.3, 30000) - 1).clip(0, 1 << 24).astype(np.uint32),
@@ -149,8 +149,8 @@ def test_arith_rejects_corrupt_wire():
     """Forged total_log2 or a non-increasing frequency prelude must
     raise, not SIGFPE in the native loop (rng collapses to 0 and the
     next (code-low)/r divides by zero)."""
-    import ans_tpu.models.arith as am
-    from ans_tpu.reference_model import vbyte
+    import lane_ans.models.arith as am
+    from lane_ans.reference_model import vbyte
     vals = (np.random.default_rng(5).zipf(1.4, 5000) - 1).astype(
         np.uint32)
     c = am.Arith()
@@ -172,7 +172,7 @@ def test_shuff_pure_python_fallback_matches_native():
     """The numpy packer/decoder must work (and emit identical bytes)
     when libansnative.so is absent — regression for a uint64/int64
     shift-type crash in _pack_msb_numpy."""
-    import ans_tpu.models.shuff as sh
+    import lane_ans.models.shuff as sh
     vals = (np.random.default_rng(21).zipf(1.3, 20000) - 1).astype(
         np.uint32)
     c = sh.Shuff()

@@ -1,10 +1,10 @@
-"""ATFC self-describing container + `python -m ans_tpu` CLI."""
+"""ATFC self-describing container + `python -m lane_ans` CLI."""
 
 import numpy as np
 import pytest
 
-from ans_tpu import container
-from ans_tpu.__main__ import main as cli
+from lane_ans import container
+from lane_ans.__main__ import main as cli
 
 
 @pytest.fixture(scope="module")

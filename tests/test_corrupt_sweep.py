@@ -11,7 +11,7 @@ or loop on several of these — hardening beyond parity, see commits
 import numpy as np
 import pytest
 
-from ans_tpu import models
+from lane_ans import models
 
 # one representative per wire family (compat = native/bit-exact paths);
 # composites exercise the two-stage containers

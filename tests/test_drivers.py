@@ -7,7 +7,7 @@ import os
 import numpy as np
 import pytest
 
-from ans_tpu.utils import io
+from lane_ans.utils import io
 
 
 @pytest.fixture(scope="module")
@@ -20,7 +20,7 @@ def data_dir(tmp_path_factory):
 
 
 def test_generate_inputs(tmp_path):
-    from ans_tpu.drivers import generate_inputs
+    from lane_ans.drivers import generate_inputs
     files = generate_inputs.generate_all(str(tmp_path), 500)
     assert len(files) == 14
     for f in files:
@@ -28,7 +28,7 @@ def test_generate_inputs(tmp_path):
 
 
 def test_table_effectiveness(data_dir, capsys):
-    from ans_tpu.drivers import table_effectiveness
+    from lane_ans.drivers import table_effectiveness
     table_effectiveness.main(
         ["-i", data_dir, "--methods", "vbyte,ANSmsb,entropy_only",
          "--engine", "compat"])
@@ -37,14 +37,14 @@ def test_table_effectiveness(data_dir, capsys):
 
 
 def test_table_efficiency(data_dir, capsys):
-    from ans_tpu.drivers import table_efficiency
+    from lane_ans.drivers import table_efficiency
     table_efficiency.main(["-i", data_dir, "--methods", "vbyte,ANSfold-1",
                            "--engine", "compat", "--runs", "1"])
     assert "\\method{ANSfold-1}" in capsys.readouterr().out
 
 
 def test_benchmark_driver(data_dir, capsys):
-    from ans_tpu.drivers import benchmark
+    from lane_ans.drivers import benchmark
     benchmark.main(["-i", data_dir, "--methods", "ANSmsb,shuff",
                     "--engine", "compat", "--runs", "1"])
     out = capsys.readouterr().out
@@ -52,8 +52,8 @@ def test_benchmark_driver(data_dir, capsys):
 
 
 def test_fold_effectiveness(data_dir, capsys):
-    from ans_tpu.drivers import fold_effectiveness
-    from ans_tpu.drivers._cli import load_inputs
+    from lane_ans.drivers import fold_effectiveness
+    from lane_ans.drivers._cli import load_inputs
 
     class A:
         input = data_dir + "/zipfy.u32"
@@ -64,7 +64,7 @@ def test_fold_effectiveness(data_dir, capsys):
 
 
 def test_bucket_skew(data_dir, capsys):
-    from ans_tpu.drivers import bucket_skew
+    from lane_ans.drivers import bucket_skew
     v = io.read_file_u32(data_dir + "/zipfy.u32")
     rows = bucket_skew.compute_skew(v, "zipfy", 2)
     assert rows and all(r[2] == 2 for r in rows)
@@ -73,29 +73,29 @@ def test_bucket_skew(data_dir, capsys):
 
 
 def test_rescale_freqs(data_dir, capsys):
-    from ans_tpu.drivers import rescale_freqs
+    from lane_ans.drivers import rescale_freqs
     v = io.read_file_u32(data_dir + "/zipfy.u32")[:2000]
     rows = rescale_freqs.rescale_study(v, "zipfy")
     assert len(rows) == 31
 
 
 def test_lower_order_entropy(data_dir, capsys):
-    from ans_tpu.drivers import lower_order_entropy
+    from lane_ans.drivers import lower_order_entropy
     v = io.read_file_u32(data_dir + "/zipfy.u32")
     lower_order_entropy.run(v, "zipfy")
     assert len(capsys.readouterr().out.splitlines()) == 32
 
 
 def test_prelude_driver(data_dir, capsys):
-    from ans_tpu.drivers import prelude
+    from lane_ans.drivers import prelude
     v = io.read_file_u32(data_dir + "/zipfy.u32")
     prelude.run(v, "zipfy", "compat")
     assert "prelude_bytes" in capsys.readouterr().out
 
 
 def test_pseudo_adaptive_driver(data_dir, capsys):
-    from ans_tpu.drivers import pseudo_adaptive
-    from ans_tpu.drivers._cli import load_inputs
+    from lane_ans.drivers import pseudo_adaptive
+    from lane_ans.drivers._cli import load_inputs
 
     class A:
         input = data_dir + "/zipfy.u32"
@@ -106,13 +106,13 @@ def test_pseudo_adaptive_driver(data_dir, capsys):
 
 
 def test_shuff_driver(data_dir, capsys):
-    from ans_tpu.drivers import shuff
+    from lane_ans.drivers import shuff
     shuff.main(["-i", data_dir + "/zipfy.u32"])
     assert "bpi=" in capsys.readouterr().out
 
 
 def test_generate_bwtmtf_driver(tmp_path):
-    from ans_tpu.drivers import generate_bwtmtf
+    from lane_ans.drivers import generate_bwtmtf
     src = tmp_path / "text.txt"
     src.write_bytes(b"the quick brown fox jumps over the lazy dog " * 40)
     out = tmp_path / "ranks.u32"
@@ -122,7 +122,7 @@ def test_generate_bwtmtf_driver(tmp_path):
 
 
 def test_generate_rlz():
-    from ans_tpu.drivers.generate_rlz import (rlz_factorize,
+    from lane_ans.drivers.generate_rlz import (rlz_factorize,
                                               rlz_reconstruct)
     rng = np.random.default_rng(1)
     base = rng.integers(0, 30, 2000).astype(np.uint8)

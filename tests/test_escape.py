@@ -13,10 +13,10 @@ interpreter mode, and the blocked runtime.
 import numpy as np
 import pytest
 
-from ans_tpu import models
-from ans_tpu.models.ans import AnsInt, AnsSint
-from ans_tpu.ops import escape
-from ans_tpu.reference_model.model import adjust_freqs, load_prelude
+from lane_ans import models
+from lane_ans.models.ans import AnsInt, AnsSint
+from lane_ans.ops import escape
+from lane_ans.reference_model.model import adjust_freqs, load_prelude
 
 
 @pytest.fixture(scope="module")
@@ -99,7 +99,7 @@ def test_declines_mixed_freq_tail():
                            np.arange(0, 16384, 2, dtype=np.uint32)])
     plan, nfreqs = _plan_of(vals)
     assert plan is None
-    from ans_tpu.ops import grouped
+    from lane_ans.ops import grouped
     assert grouped.use_grouped_layout(nfreqs)
 
 
@@ -136,22 +136,22 @@ def test_bpi_near_entropy(engaged_values):
     assert bpi <= H * 1.01 + (3000 * 8) / n
 
 
-def test_pallas_search_kernel_interpret(engaged_values, monkeypatch):
-    """The escaped wire decodes through the pivot-search Pallas kernel
-    (the production TPU path for folded alphabets) in interpreter
-    mode."""
+def test_pallas_search_kernel_interpret(engaged_values):
+    """The escaped wire decodes through the fused decode kernel (the GPU
+    engine) in interpreter mode, bit for bit like the XLA scan."""
     n = len(engaged_values)
-    c = AnsInt(lanes=256)
-    blob = c.encode(engaged_values)
-    prep = models.prepare_decoder("ANS", blob, n, engine="search",
+    blob = AnsInt(lanes=256).encode(engaged_values)
+    prep = models.prepare_decoder("ANS", blob, n, engine="kernel",
                                   interpret=True)
-    assert prep.engine == "search"
-    out = prep.to_host(prep())
-    np.testing.assert_array_equal(out, engaged_values)
+    assert prep.engine == "kernel"
+    out = np.asarray(prep())
+    xla = models.prepare_decoder("ANS", blob, n, engine="xla")
+    np.testing.assert_array_equal(out, np.asarray(xla()))
+    np.testing.assert_array_equal(prep.to_host(out), engaged_values)
 
 
 def test_blocked_roundtrip(engaged_values):
-    from ans_tpu.parallel import block_runtime
+    from lane_ans.parallel import block_runtime
     mesh = block_runtime.make_mesh(4)
     codec = block_runtime.BlockCodec("ANS", mesh, lanes=256)
     blob = codec.encode(engaged_values)

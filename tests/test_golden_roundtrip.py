@@ -7,7 +7,7 @@ Mirrors the reference's REQUIRE_EQUAL-after-decode strategy
 import numpy as np
 import pytest
 
-from ans_tpu.reference_model import rans_compat as rc
+from lane_ans.reference_model import rans_compat as rc
 
 
 def _roundtrip(codec, values):
@@ -60,7 +60,7 @@ def test_ans_byte(rng):
 def test_h_approx_shrinks_frame(datasets):
     """Larger H_approx allows smaller frames (the Figure-12 tradeoff:
     smaller prelude, slightly worse stream)."""
-    from ans_tpu.reference_model.model import adjust_freqs
+    from lane_ans.reference_model.model import adjust_freqs
     v = datasets["zipf12"]
     freqs = np.bincount(v).astype(np.uint64)
     m1 = int(adjust_freqs(freqs, len(freqs) - 1, False, 1).sum())
@@ -74,8 +74,8 @@ def test_lane_frame_cap_clamps_honest_search():
     max_frame=None to the ceiling instead of raising at encode (the
     compat engine stays truly uncapped).  Clamp is a no-op when the
     honest frame already fits."""
-    from ans_tpu.models.ans import LANE_FRAME_LIMIT, lane_frame_cap
-    from ans_tpu.reference_model.model import adjust_freqs
+    from lane_ans.models.ans import LANE_FRAME_LIMIT, lane_frame_cap
+    from lane_ans.reference_model.model import adjust_freqs
     # heavy head + a huge tail of singletons: honest frame > 2^22
     freqs = np.ones(1 << 20, dtype=np.uint64)
     freqs[:64] = 1 << 19

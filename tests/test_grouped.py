@@ -1,23 +1,27 @@
-"""Frequency-grouped engine tests (interpreter mode on CPU).
+"""Frequency-grouped slot layout tests (CPU; decode kernel interpreted).
 
-The grouped slot layout (ops/grouped.py) is the production path for
+The grouped slot layout (ops/grouped.py) is the frame order for
 genuinely large alphabets (sigma > 2^13: ans_int over zipf-2^20 / word
 ids / uniform16+).  These tests cover the layout math (group bound,
-base permutation, GM division), the packed planes, the grouped decode
-kernel against every table shape (sparse/dense ans_int, msb with
-exceptions, multi-section, 3-renorm frames), the grouped encode scan
-against the XLA engine byte-for-byte, and the end-to-end codec
-round-trips under the layout (XLA engines on CPU).
+base permutation), the decode kernel against the XLA scan on grouped
+tables (sparse/dense ans_int, exceptions, multi-section, fold), the
+prepared encoder against the one-shot codec byte for byte, the block
+runtime, and the end-to-end codec round-trips under the layout.
 """
+
+import functools
 
 import numpy as np
 import pytest
 
-from ans_tpu.models import framing
-from ans_tpu.models.ans import AnsInt, AnsMsb
-from ans_tpu.ops import grouped, lane_codec, pallas_decode, tables
-from ans_tpu.reference_model import mappings as map_np
-from ans_tpu.reference_model.model import adjust_freqs, load_prelude
+from lane_ans import models
+from lane_ans.models import framing
+from lane_ans.models.ans import AnsInt, AnsMsb
+from lane_ans.ops import grouped, tables
+from lane_ans.reference_model import mappings as map_np
+from lane_ans.reference_model.model import adjust_freqs, load_prelude
+
+from kernel_cases import encode_staged, kernel_vs_xla, run_blob
 
 
 @pytest.fixture(scope="module")
@@ -80,22 +84,21 @@ def test_group_bound_is_tight_on_adversarial_freqs():
     assert lay.num_groups <= int(np.sqrt(2 * M)) + 1
 
 
-def test_plane_packing_roundtrip():
-    rng = np.random.default_rng(3)
-    for mx in (3, 15, 255, 65535, (1 << 20) - 1, (1 << 31) - 1):
-        vals = rng.integers(0, mx + 1, size=1000).astype(np.uint32)
-        planes = grouped.pack_planes(vals)
-        out = np.zeros(1000, np.uint64)
-        for p in planes:
-            per = 32 // p.bits
-            words = p.words.astype(np.uint64)
-            idx = np.arange(1000)
-            ent = (words[idx // per]
-                   >> ((idx % per) * p.bits).astype(np.uint64)) & np.uint64(
-                       (1 << p.bits) - 1)
-            out |= ent << p.shift
-        np.testing.assert_array_equal(out.astype(np.uint32), vals)
-    assert grouped.pack_planes(np.zeros(5, np.uint32)) == ()
+def test_plane_packing_roundtrip(big_sparse):
+    """The encoder's per-symbol bases follow the layout: every live
+    symbol's slot run [base, base + f) lies inside the frame and the
+    runs tile it exactly."""
+    freqs = np.bincount(big_sparse).astype(np.uint64)
+    nfreqs = adjust_freqs(freqs, int(big_sparse.max()), False, 1)
+    lay = grouped.build_group_layout(nfreqs)
+    et = tables.build_enc_table(nfreqs, lay)
+    np.testing.assert_array_equal(et.base, lay.base_of_symbol())
+    live = np.flatnonzero(nfreqs)
+    starts = et.base[live].astype(np.int64)
+    ends = starts + np.asarray(nfreqs, dtype=np.int64)[live]
+    order = np.argsort(starts)
+    assert starts[order][0] == 0 and ends[order][-1] == lay.frame_size
+    np.testing.assert_array_equal(starts[order][1:], ends[order][:-1])
 
 
 def test_use_grouped_layout_is_format_stable():
@@ -108,70 +111,27 @@ def test_use_grouped_layout_is_format_stable():
     assert grouped.use_grouped_layout(nf2)
 
 
-def _grouped_table(codec, nfreqs):
-    lay = grouped.build_group_layout(nfreqs)
-    if isinstance(codec, AnsMsb):
-        syms = np.arange(len(nfreqs), dtype=np.uint32)
-        return grouped.build_group_table(
-            lay, map_np.msb_unmap_high(syms),
-            map_np.msb_exception_bytes(syms))
-    return grouped.build_group_table(lay)
-
-
-def _run_decode(codec, values, S, TC=32):
-    """Encode on CPU (XLA engine under the grouped layout), decode with
-    the grouped Pallas kernel in interpreter mode."""
-    blob = codec.encode(values)
-    nfreqs, plen = load_prelude(blob)
-    assert grouped.use_grouped_layout(nfreqs), "fixture sigma too small"
-    gt = _grouped_table(codec, nfreqs)
-    _, states, payload, t_sec, sec_len = framing.parse(blob, plen)
-    n = len(values)
-    T = lane_codec.lane_steps(n, S)
-    out = pallas_decode.decode_grouped(payload, states, gt, n, S=S, T=T,
-                                       t_sec=t_sec, sec_len=sec_len,
-                                       TC=TC, interpret=True)
-    np.testing.assert_array_equal(
-        np.asarray(out).reshape(-1)[:n], values)
-    return gt
-
-
 def test_grouped_decode_sparse(big_sparse):
-    gt = _run_decode(AnsInt(lanes=256), big_sparse, 256)
-    assert gt.val_planes  # sparse: value table needed
-    assert not gt.has_exc
+    blob = run_blob("ANS", AnsInt(lanes=256), big_sparse)
+    nfreqs, _ = load_prelude(blob)
+    assert grouped.use_grouped_layout(nfreqs), "fixture sigma too small"
+    assert (np.asarray(nfreqs) == 0).any()  # sparse: gaps in the values
 
 
 def test_grouped_decode_dense(big_dense):
-    gt = _run_decode(AnsInt(lanes=256), big_dense, 256)
-    assert gt.val_planes  # dense but freq-sorted: still needed
-
-
-def _xla_encode(mapped, nb, excb, nfreqs, lay, S):
-    """Encode with the XLA engine under the grouped layout; returns
-    (stream u8, states, T, step_base)."""
-    import jax.numpy as jnp
-    et = tables.build_enc_table(nfreqs, lay)
-    n = len(mapped)
-    T = lane_codec.lane_steps(n, S)
-    pad = T * S - n
-    m_ts = jnp.asarray(np.pad(mapped, (0, pad)).reshape(T, S))
-    k_ts = jnp.asarray(np.pad(nb, (0, pad)).reshape(T, S))
-    b_ts = jnp.asarray(np.pad(excb, ((0, pad), (0, 0))).reshape(T, S, 3))
-    xs, xt, xstates, xsb = lane_codec.encode_lanes(
-        m_ts, k_ts, b_ts, jnp.int32(n),
-        jnp.asarray(et.freq), jnp.asarray(et.base), jnp.asarray(et.ub),
-        S=S, T=T, log2m=et.log2m)
-    return (np.asarray(xs[: int(xt)]), np.asarray(xstates), T,
-            np.asarray(xsb), int(xt))
+    blob = run_blob("ANS", AnsInt(lanes=256), big_dense)
+    nfreqs, _ = load_prelude(blob)
+    lay = grouped.build_group_layout(nfreqs)
+    # dense values, but slots follow the frequency order
+    assert not (lay.perm == np.arange(lay.sigma)).all()
 
 
 def test_grouped_decode_exceptions_synthetic():
     """Exception path (NE > 0): a fold-like synthetic coder whose
     low byte rides the exception stream while the grouped table
-    reconstructs high = sym << 8.  No public codec reaches sigma > 2^13
-    WITH exceptions (msb's alphabet caps at 1280), so the kernel's
-    high/nb plane machinery is exercised directly."""
+    reconstructs high = sym << 8.  No public codec but fold-7 reaches
+    sigma > 2^13 WITH exceptions (msb's alphabet caps at 1280), so the
+    grouped high/nb tables are exercised directly."""
     rng = np.random.default_rng(9)
     sym = np.concatenate([
         np.arange(9000, dtype=np.uint32),
@@ -189,17 +149,11 @@ def test_grouped_decode_exceptions_synthetic():
     excb = np.zeros((len(vals), 3), np.uint8)
     excb[:, 0] = vals & 0xFF
     S = 256
-    stream, states, T, step_base, total = _xla_encode(
-        sym, nb, excb, nfreqs, lay, S)
-    t_sec, sec_len = framing.choose_sections(step_base, total, T)
-    gt = grouped.build_group_table(lay, sym_high, sym_nb)
-    assert gt.has_exc and gt.high_planes and gt.nb_plane is not None
-    out = pallas_decode.decode_grouped(stream, states.view(np.uint32),
-                                       gt, len(vals), S=S, T=T,
-                                       t_sec=t_sec, sec_len=sec_len,
-                                       TC=32, interpret=True)
-    np.testing.assert_array_equal(
-        np.asarray(out).reshape(-1)[: len(vals)], vals)
+    stream, _, states, _, _ = encode_staged(sym, nb, excb, nfreqs, S, lay)
+    dt = tables.build_dec_table(nfreqs, sym_high, sym_nb, layout=lay,
+                                slots=False)
+    assert dt.has_exc and dt.freq is None
+    kernel_vs_xla(stream, states, dt, len(vals), S, vals)
 
 
 def test_grouped_decode_multisection(big_sparse):
@@ -212,63 +166,31 @@ def test_grouped_decode_multisection(big_sparse):
     S = 128
     nbz = np.zeros(n, np.uint32)
     excbz = np.zeros((n, 3), np.uint8)
-    stream, states, T, step_base, total = _xla_encode(
-        big_sparse, nbz, excbz, nfreqs, lay, S)
+    stream, total, states, step_base, T = encode_staged(
+        big_sparse, nbz, excbz, nfreqs, S, lay)
     t_sec, sec_len = framing.choose_sections(step_base, total, T,
                                              cap_bytes=total // 3 + 64)
     assert len(sec_len) > 1
-    gt = grouped.build_group_table(lay)
-    out = pallas_decode.decode_grouped(stream, states.view(np.uint32),
-                                       gt, n, S=S, T=T, t_sec=t_sec,
-                                       sec_len=sec_len, TC=32,
-                                       interpret=True)
-    np.testing.assert_array_equal(np.asarray(out).reshape(-1)[:n],
-                                  big_sparse)
+    blob = framing.pack(states, stream, t_sec, sec_len)
+    _, st2, payload, _, _ = framing.parse(blob, 0)
+    dt = tables.build_dec_table(nfreqs, layout=lay, slots=False)
+    kernel_vs_xla(payload, st2, dt, n, S, big_sparse)
 
 
 def test_grouped_encode_scan_matches_xla(big_sparse):
-    """The grouped Pallas scan (rank-space prefetch + GM divide) must
-    reproduce the XLA encoder byte-for-byte under the same layout —
-    both with host-remapped ranks and with in-kernel value->rank
-    planes."""
-    import jax.numpy as jnp
-    values = big_sparse
-    freqs = np.bincount(values).astype(np.uint64)
-    nfreqs = adjust_freqs(freqs, int(values.max()), False, 1)
-    lay = grouped.build_group_layout(nfreqs)
-    et = tables.build_enc_table(nfreqs, lay)
-    S = 128
-    n = len(values)
-    T = lane_codec.lane_steps(n, S)
-    pad = T * S - n
-    m_ts = jnp.asarray(np.pad(values, (0, pad)).reshape(T, S))
-    k_ts = jnp.zeros((T, S), jnp.uint32)
-    b_ts = jnp.zeros((T, S, 3), jnp.uint8)
-    xs, xt, xstates, _ = lane_codec.encode_lanes(
-        m_ts, k_ts, b_ts, jnp.int32(n),
-        jnp.asarray(et.freq), jnp.asarray(et.base), jnp.asarray(et.ub),
-        S=S, T=T, log2m=et.log2m)
-    ranks = lay.rank_of[values]
-    r_ts = jnp.asarray(np.pad(ranks, (0, pad)).reshape(T, S))
-    for syms_ts, vr in ((r_ts, None),
-                        (m_ts, grouped.pack_planes(lay.rank_of))):
-        packed, pstates, _ = pallas_encode_scan(
-            syms_ts, n, lay, S=S, T=T, vr_planes=vr)
-        ps, pt, _ = lane_codec.place_stream_packed(
-            packed[:T], k_ts, b_ts, jnp.int32(n), S=S, T=T)
-        assert int(pt) == int(xt)
-        np.testing.assert_array_equal(
-            np.asarray(pstates).view(np.uint32), np.asarray(xstates))
-        np.testing.assert_array_equal(np.asarray(ps[: int(xt)]),
-                                      np.asarray(xs[: int(xt)]))
-
-
-def pallas_encode_scan(syms_ts, n, lay, *, S, T, vr_planes):
-    import jax.numpy as jnp
-    from ans_tpu.ops import pallas_encode
-    return pallas_encode.encode_scan_grouped(
-        syms_ts, jnp.int32(n), lay, S=S, T=T, TC=32,
-        vr_planes=vr_planes, interpret=True)
+    """The prepared (device-resident) encoder reproduces the one-shot
+    codec byte for byte under the grouped layout, for a raw alphabet
+    (ANS) and a device-mapped fold-7 one."""
+    from lane_ans.models.ans import AnsFold
+    wide = ((np.arange(60000, dtype=np.uint64) * 52817) % (1 << 22)
+            ).astype(np.uint32)
+    for name, codec, v in (("ANS", AnsInt(lanes=128), big_sparse),
+                           ("ANSfold-7", AnsFold(7, lanes=128), wide)):
+        pe = models.prepare_encoder(name, v, lanes=128)
+        blob = pe.prelude + pe.to_bytes(*pe())
+        assert blob == codec.encode(v), name
+        nfreqs, _ = load_prelude(blob)
+        assert grouped.use_grouped_layout(nfreqs), name
 
 
 def test_codec_roundtrip_and_cross_sigma_boundary():
@@ -308,67 +230,38 @@ def test_materialized_slots_match_classic_shape(big_sparse):
     np.testing.assert_array_equal(first, np.asarray(nfreqs))
 
 
-def test_block_runtime_grouped(big_sparse):
-    """BlockCodec routes large alphabets through the grouped kernels on
-    every mesh device (Pallas interpret mode, virtual CPU mesh), and
-    the XLA block engine decodes the same container (slot
-    materialization under the grouped layout)."""
-    from ans_tpu.parallel import BlockCodec, make_mesh
-    mesh = make_mesh(4)
-    fast = BlockCodec("ANS", mesh, lanes=128, engine="pallas",
-                      interpret=True)
-    blob = fast.encode(big_sparse)
-    np.testing.assert_array_equal(fast.decode(blob, len(big_sparse)),
+def test_block_runtime_grouped(big_sparse, monkeypatch):
+    """BlockCodec over a 4-device mesh on a large alphabet: the XLA scan
+    engine, and the decode kernel inside shard_map (interpreted) decode
+    the same container."""
+    from lane_ans.models import engine
+    from lane_ans.ops import lane_kernel
+    from lane_ans.parallel import BlockCodec, make_mesh
+    codec = BlockCodec("ANS", make_mesh(4), lanes=128)
+    blob = codec.encode(big_sparse)
+    np.testing.assert_array_equal(codec.decode(blob, len(big_sparse)),
                                   big_sparse)
-    slow = BlockCodec("ANS", mesh, lanes=128, engine="xla")
-    blob2 = slow.encode(big_sparse)
-    np.testing.assert_array_equal(slow.decode(blob2, len(big_sparse)),
-                                  big_sparse)
-    # cross: the two engines share the grouped slot layout (format),
-    # so each decodes the other's container
-    np.testing.assert_array_equal(slow.decode(blob, len(big_sparse)),
-                                  big_sparse)
-    np.testing.assert_array_equal(fast.decode(blob2, len(big_sparse)),
-                                  big_sparse)
+    monkeypatch.setattr(engine, "choose_engine", lambda S: "kernel")
+    monkeypatch.setattr(lane_kernel, "decode", functools.partial(
+        lane_kernel.decode, interpret=True))
+    kernel_codec = BlockCodec("ANS", make_mesh(4), lanes=128)
+    np.testing.assert_array_equal(
+        kernel_codec.decode(blob, len(big_sparse)), big_sparse)
 
 
 def test_grouped_fold_exceptions_codec_level():
     """fold-7 on a wide alphabet pushes the FOLDED sigma past 2^13, so
     the grouped layout engages WITH exception bytes through the public
-    codec (kernel-level exception coverage is synthetic; this binds the
-    whole fold pipeline end-to-end, decoded by the grouped kernel in
-    interpret mode)."""
-    from ans_tpu.models.ans import AnsFold
+    codec (this binds the whole fold pipeline end-to-end, decoded by the
+    kernel in interpret mode and by the XLA scan)."""
+    from lane_ans.models.ans import AnsFold
     v = ((np.arange(60000, dtype=np.uint64) * 52817) % (1 << 22)).astype(
         np.uint32)
     sig = len(np.unique(map_np.fold_map(v, 7)))
     assert sig > (1 << 13), sig
-    codec = AnsFold(7, lanes=256)
-    blob = codec.encode(v)
-    np.testing.assert_array_equal(codec.decode(blob, len(v)), v)
+    blob = run_blob("ANSfold-7", AnsFold(7, lanes=256), v)
     nfreqs, _ = load_prelude(blob)
     assert grouped.use_grouped_layout(nfreqs)
-    gt = _grouped_table_fold(codec, nfreqs)
-    _run_decode_blob(codec, blob, v, 256, gt)
-
-
-def _grouped_table_fold(codec, nfreqs):
-    syms = np.arange(len(nfreqs), dtype=np.uint32)
-    high, nb = map_np.fold_unmap_high(syms, codec.fidelity)
-    lay = grouped.build_group_layout(nfreqs)
-    return grouped.build_group_table(lay, high, nb)
-
-
-def _run_decode_blob(codec, blob, values, S, gt):
-    nfreqs, plen = load_prelude(blob)
-    _, states, payload, t_sec, sec_len = framing.parse(blob, plen)
-    n = len(values)
-    T = lane_codec.lane_steps(n, S)
-    out = pallas_decode.decode_grouped(payload, states, gt, n, S=S, T=T,
-                                       t_sec=t_sec, sec_len=sec_len,
-                                       TC=32, interpret=True)
-    np.testing.assert_array_equal(np.asarray(out).reshape(-1)[:n],
-                                  values)
 
 
 def test_grouped_size_parity_with_compat(big_sparse):
@@ -376,7 +269,7 @@ def test_grouped_size_parity_with_compat(big_sparse):
     same model bpi; the lane container differs from compat only by the
     state flush + renorm noise (< 3% at this tiny n; the overhead is
     4S bytes, amortized at real sizes)."""
-    from ans_tpu import models
+    from lane_ans import models
     lane = models.get("ANS", "lane")
     lane.lanes = 128
     compat = models.get("ANS", "compat")
@@ -389,18 +282,19 @@ def test_grouped_size_parity_with_compat(big_sparse):
 
 
 def test_grouped_env_force(monkeypatch, big_sparse):
-    """ANS_TPU_DECODE_ENGINE=grouped is honored only under a grouped
-    layout; 'search' on a grouped table falls back."""
-    from ans_tpu.models import engine
-    freqs = np.bincount(big_sparse).astype(np.uint64)
-    nfreqs = adjust_freqs(freqs, int(big_sparse.max()), False, 1)
+    """On a GPU backend prepare_decoder stages a grouped blob for the
+    kernel (the per-slot tables in the grouped order), on the CPU
+    backend for the XLA scan."""
+    from lane_ans.models import engine
+    blob = AnsInt(lanes=256).encode(big_sparse)
+    n = len(big_sparse)
+    assert models.prepare_decoder("ANS", blob, n).engine == "xla"
+    monkeypatch.setattr(engine.jax, "default_backend", lambda: "gpu")
+    prep = models.prepare_decoder("ANS", blob, n)
+    assert prep.engine == "kernel"
+    nfreqs, _ = load_prelude(blob)
     lay = grouped.build_group_layout(nfreqs)
-    dt = tables.build_dec_table(nfreqs, layout=lay, slots=False)
-    monkeypatch.setenv("ANS_TPU_DECODE_ENGINE", "search")
-    with pytest.warns(UserWarning, match="not eligible"):
-        assert engine.choose_decode_engine(dt, 256) in ("xla", "direct",
-                                                        "grouped")
-    monkeypatch.setenv("ANS_TPU_DECODE_ENGINE", "grouped")
-    # CPU backend: grouped needs a TPU, so the force is ineligible here
-    with pytest.warns(UserWarning, match="not eligible"):
-        assert engine.choose_decode_engine(dt, 256) == "xla"
+    # val table = owning symbol per slot, slot runs in rank order
+    sym = np.asarray(prep._args[4])
+    first = np.r_[0, np.flatnonzero(np.diff(sym)) + 1]
+    np.testing.assert_array_equal(sym[first], lay.perm)

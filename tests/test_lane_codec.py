@@ -1,4 +1,4 @@
-"""Round-trip + format tests for the S-lane TPU engine (ops.lane_codec,
+"""Round-trip + format tests for the S-lane engine (ops.lane_codec,
 models.ans) on the CPU backend.
 
 Mirrors the reference's REQUIRE_EQUAL-after-decode strategy
@@ -11,16 +11,16 @@ elsewhere.
 import numpy as np
 import pytest
 
-from ans_tpu import models
-from ans_tpu.models import config, framing
-from ans_tpu.reference_model import rans_compat as rc
+from lane_ans import models
+from lane_ans.models import config, framing
+from lane_ans.reference_model import rans_compat as rc
 
 LANES = 64  # fixed for tests: bounds jit cache growth
 
 
-def _lane(name):
+def _lane(name, lanes=None):
     c = models.get(name, "lane")
-    c.lanes = LANES
+    c.lanes = lanes or LANES
     return c
 
 
@@ -109,11 +109,11 @@ def test_decode_is_size_directed(datasets):
 
 def test_prepared_decoder_api(datasets):
     """PreparedDecoder: stage once, decode repeatedly (serving path)."""
-    from ans_tpu.models import framing
-    from ans_tpu.models.engine import PreparedDecoder
-    from ans_tpu.ops import lane_codec, tables
-    from ans_tpu.reference_model import mappings as map_np
-    from ans_tpu.reference_model.model import load_prelude
+    from lane_ans.models import framing
+    from lane_ans.models.engine import PreparedDecoder
+    from lane_ans.ops import lane_codec, tables
+    from lane_ans.reference_model import mappings as map_np
+    from lane_ans.reference_model.model import load_prelude
 
     v = datasets["zipf_large"]
     codec = _lane("ANSfold-2")
@@ -122,36 +122,32 @@ def test_prepared_decoder_api(datasets):
     syms = np.arange(len(nfreqs), dtype=np.uint32)
     high, nb = map_np.fold_unmap_high(syms, 2)
     dt = tables.build_dec_table(nfreqs, high, nb)
-    S, states, payload, t_sec, sec_len = framing.parse(blob, plen)
+    S, states, payload, _, _ = framing.parse(blob, plen)
     prep = PreparedDecoder(payload, states, dt, len(v), S=S,
                            T=lane_codec.lane_steps(len(v), S),
-                           has_exc=True, t_sec=t_sec, sec_len=sec_len)
+                           has_exc=True)
     for _ in range(2):  # re-runnable without re-staging
         np.testing.assert_array_equal(prep.to_host(prep()), v)
 
 
-def test_choose_sections_joint_respects_cap_for_every_device():
-    """min() of per-device choose_sections results can straddle an
-    unvalidated cut and reach ~2x the cap (regression).  The joint
-    chooser must return one t_sec whose sections respect the cap on
-    EVERY device's byte distribution."""
-    from ans_tpu.models import framing
-    cap = 1000
-    T = 320
-    # device A: bytes concentrated right around step 160 (its own
-    # choice would be t_sec=160: sections [0,160) and [160,320) both
-    # just under the cap)
-    base_a = np.zeros(T, dtype=np.int64)
-    base_a[128:160] = np.linspace(0, 999, 32, dtype=np.int64)
-    base_a[160:192] = 999 + np.linspace(0, 999, 32, dtype=np.int64)
-    base_a[192:] = 1998
-    # device B: uniform spread, forces a smaller t_sec
-    base_b = np.linspace(0, 12000, T, endpoint=False, dtype=np.int64)
-    t_sec, lens = framing.choose_sections_joint(
-        [base_a, base_b], [1998, 12000], T, cap_bytes=cap, quantum=32)
-    for ln in lens:
-        assert ln.max() <= cap or t_sec == 32
-    assert T % t_sec == 0 or t_sec == 32
-    # per-device totals preserved
-    assert int(lens[0].sum()) == 1998
-    assert int(lens[1].sum()) == 12000
+@pytest.mark.parametrize("S", [1, 2, 4, 8, 16, 32, 64])
+def test_kernel_small_lane_counts(datasets, S):
+    """The decode kernel pads S up to its minimum block width: the padded
+    lanes stay invalid, the output keeps S columns, and it matches the
+    XLA scan bit for bit (kernel interpreted)."""
+    from kernel_cases import run_blob
+    from lane_ans.ops import lane_kernel
+    v = datasets["zipf12"][:3001]
+    assert lane_kernel.padded_lanes(S) == max(S, lane_kernel.MIN_LANES)
+    run_blob("ANSmsb", _lane("ANSmsb", lanes=S), v)
+
+
+def test_kernel_wrapper_shapes():
+    """padded_lanes / num_warps policy and the lane cap."""
+    from lane_ans.ops import lane_kernel
+    assert lane_kernel.padded_lanes(4096) == 4096
+    assert lane_kernel.num_warps(32) == 4
+    assert lane_kernel.num_warps(4096) == 32
+    assert lane_kernel.num_warps(1 << 14) == 32
+    with pytest.raises(ValueError, match="S <="):
+        lane_kernel.padded_lanes(2 * lane_kernel.MAX_LANES)

@@ -1,29 +1,24 @@
-"""Pallas encode scan tests (interpreter mode on CPU): the scan's packed
-words + shared placement must reproduce the XLA engine's stream
-byte-for-byte, including the magic-division state updates."""
+"""Device-resident encode (models.prepare_encoder / PreparedEncoder)
+against the one-shot codec: the staged lane encode scan + placement must
+reproduce codec.encode's container byte for byte, across ragged tails,
+section cuts, large frames and degenerate models."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ans_tpu.ops import lane_codec, pallas_encode, tables
-from ans_tpu.reference_model import mappings as map_np
-from ans_tpu.reference_model.model import adjust_freqs
+from lane_ans import models
+from lane_ans.models import framing
+from lane_ans.models.ans import AnsFold, AnsInt, _stage_ts
+from lane_ans.models.engine import PreparedEncoder
+from lane_ans.ops import lane_codec, tables
+
+from kernel_cases import kernel_vs_xla
 
 
-def _stage(values, fidelity, S):
-    mapped = map_np.fold_map(values, fidelity)
-    k, b = map_np.fold_exceptions(values, fidelity)
-    freqs = np.bincount(mapped).astype(np.uint64)
-    nfreqs = adjust_freqs(freqs, len(freqs) - 1, True, 1)
-    et = tables.build_enc_table(nfreqs)
-    n = len(values)
-    T = lane_codec.lane_steps(n, S)
-    pad = T * S - n
-    m_ts = jnp.asarray(np.pad(mapped, (0, pad)).reshape(T, S))
-    k_ts = jnp.asarray(np.pad(k, (0, pad)).reshape(T, S))
-    b_ts = jnp.asarray(np.pad(b, ((0, pad), (0, 0))).reshape(T, S, 3))
-    return et, n, T, m_ts, k_ts, b_ts
+def prepared_blob(name, values, lanes):
+    pe = models.prepare_encoder(name, values, lanes=lanes)
+    return pe.prelude + pe.to_bytes(*pe())
 
 
 @pytest.mark.parametrize("n_take", [128 * 40 + 7, 4096])
@@ -31,60 +26,32 @@ def test_pallas_encode_matches_xla(n_take):
     rng = np.random.default_rng(11)
     values = (rng.zipf(1.3, size=n_take) - 1).clip(0, 1 << 27).astype(
         np.uint32)
-    S = 128
-    et, n, T, m_ts, k_ts, b_ts = _stage(values, 2, S)
-
-    xs, xt, xstates, xsb = lane_codec.encode_lanes(
-        m_ts, k_ts, b_ts, jnp.int32(n),
-        jnp.asarray(et.freq), jnp.asarray(et.base), jnp.asarray(et.ub),
-        S=S, T=T, log2m=et.log2m)
-
-    packed, pstates, _ = pallas_encode.encode_scan(
-        m_ts, k_ts, jnp.int32(n), et, S=S, T=T, TC=32, interpret=True)
-    ps, pt, psb = lane_codec.place_stream_packed(
-        packed[:T], k_ts, b_ts, jnp.int32(n), S=S, T=T)
-
-    assert int(pt) == int(xt)
-    np.testing.assert_array_equal(
-        np.asarray(pstates).view(np.uint32), np.asarray(xstates))
-    np.testing.assert_array_equal(np.asarray(ps[: int(xt)]),
-                                  np.asarray(xs[: int(xt)]))
-    np.testing.assert_array_equal(np.asarray(psb), np.asarray(xsb))
+    blob = prepared_blob("ANSfold-2", values, 128)
+    assert blob == AnsFold(2, lanes=128).encode(values)
 
 
 def test_pallas_place_matches_scatter():
-    """The routing-network placement kernel must produce the identical
-    stream to the XLA scatter placement, across section cuts."""
-    from ans_tpu.models import framing
-    from ans_tpu.ops import pallas_place
-
+    """A stream long enough for several sections: the prepared encoder's
+    section table and bytes equal the one-shot codec's, and the stream
+    equals the raw placement output."""
     rng = np.random.default_rng(4)
     values = (rng.zipf(1.35, size=30000) - 1).clip(0, 1 << 26).astype(
         np.uint32)
-    S = 128
-    et, n, T, m_ts, k_ts, b_ts = _stage(values, 2, S)
-    packed, states, _ = pallas_encode.encode_scan(
-        m_ts, k_ts, jnp.int32(n), et, S=S, T=T, TC=32, interpret=True)
-    packed = packed[:T]
-    ps, pt, _ = lane_codec.place_stream_packed(
-        packed, k_ts, b_ts, jnp.int32(n), S=S, T=T)
-    round_base, total = lane_codec.encode_totals(
-        packed, k_ts, jnp.int32(n), S=S, T=T)
-    assert int(total) == int(pt)
-    # small cap forces several sections
-    t_sec, sec_len = framing.choose_sections(
-        np.asarray(round_base)[::6], int(total), T, cap_bytes=16384)
-    assert len(sec_len) > 1
-    secs = pallas_place.place(packed, k_ts, b_ts, jnp.int32(n), S=S,
-                              T=T, t_sec=t_sec, sec_len=sec_len,
-                              interpret=True)
-    stream = pallas_place.sections_to_stream(np.asarray(secs), sec_len)
-    np.testing.assert_array_equal(stream, np.asarray(ps[: int(pt)]))
+    pe = models.prepare_encoder("ANSfold-2", values, lanes=128)
+    stream, total, states, step_base = pe()
+    body = pe.to_bytes(stream, total, states, step_base)
+    assert pe.prelude + body == AnsFold(2, lanes=128).encode(values)
+    _, st, payload, t_sec, sec_len = framing.parse(body, 0)
+    assert int(sec_len.sum()) == int(total)
+    np.testing.assert_array_equal(payload,
+                                  np.asarray(stream[: int(total)]))
+    np.testing.assert_array_equal(st, np.asarray(states))
 
 
 def test_pallas_encode_big_frame():
-    """Frames above 2^16 use split freq/base tables (big_m path) and
-    3 renorm rounds; must still match the XLA engine byte-for-byte."""
+    """A hand-built 2^17 frame (3 renorm rounds): PreparedEncoder's
+    bytes equal framing of the raw encode_lanes output, and the stream
+    decodes back (kernel and XLA scan)."""
     rng = np.random.default_rng(3)
     sigma = 4096
     values = rng.integers(0, sigma, size=30000).astype(np.uint32)
@@ -93,68 +60,40 @@ def test_pallas_encode_big_frame():
     assert et.log2m == 17
     S, n = 128, len(values)
     T = lane_codec.lane_steps(n, S)
-    pad = T * S - n
-    m_ts = jnp.asarray(np.pad(values, (0, pad)).reshape(T, S))
-    k_ts = jnp.zeros((T, S), jnp.uint32)
-    b_ts = jnp.zeros((T, S, 3), jnp.uint8)
-    xs, xt, xstates, _ = lane_codec.encode_lanes(
-        m_ts, k_ts, b_ts, jnp.int32(n),
-        jnp.asarray(et.freq), jnp.asarray(et.base), jnp.asarray(et.ub),
-        S=S, T=T, log2m=et.log2m)
-    packed, pstates, _ = pallas_encode.encode_scan(
-        m_ts, k_ts, jnp.int32(n), et, S=S, T=T, TC=32, interpret=True)
-    ps, pt, _ = lane_codec.place_stream_packed(
-        packed[:T], k_ts, b_ts, jnp.int32(n), S=S, T=T)
-    assert int(pt) == int(xt)
-    np.testing.assert_array_equal(
-        np.asarray(pstates).view(np.uint32), np.asarray(xstates))
-    np.testing.assert_array_equal(np.asarray(ps[: int(xt)]),
-                                  np.asarray(xs[: int(xt)]))
+    staged = _stage_ts(jnp.asarray(values), None, None, n, S, T)
+    pe = PreparedEncoder(*staged, n, et, S=S, T=T)
+    body = pe.to_bytes(*pe())
+    raw = lane_codec.encode_lanes(*staged, jnp.int32(n),
+                                  jnp.asarray(et.freq),
+                                  jnp.asarray(et.base), jnp.asarray(et.ub),
+                                  S=S, T=T, log2m=et.log2m)
+    assert body == framing.pack_encoded(*raw, T)
+    _, states, payload, _, _ = framing.parse(body, 0)
+    kernel_vs_xla(payload, states, tables.build_dec_table(nfreqs), n, S,
+                  values)
 
 
 def test_pallas_encode_single_symbol_freq():
     """Degenerate-ish model: one dominant symbol (freq near M) plus a
-    rare one — exercises large f and the magic division edge."""
+    rare one."""
     values = np.r_[np.zeros(5000, np.uint32), [5, 9, 5]].astype(np.uint32)
-    rng = np.random.default_rng(0)
-    rng.shuffle(values)
-    S = 128
-    et, n, T, m_ts, k_ts, b_ts = _stage(values, 1, S)
-    xs, xt, xstates, _ = lane_codec.encode_lanes(
-        m_ts, k_ts, b_ts, jnp.int32(n),
-        jnp.asarray(et.freq), jnp.asarray(et.base), jnp.asarray(et.ub),
-        S=S, T=T, log2m=et.log2m)
-    packed, pstates, _ = pallas_encode.encode_scan(
-        m_ts, k_ts, jnp.int32(n), et, S=S, T=T, TC=32, interpret=True)
-    ps, pt, _ = lane_codec.place_stream_packed(
-        packed[:T], k_ts, b_ts, jnp.int32(n), S=S, T=T)
-    assert int(pt) == int(xt)
-    np.testing.assert_array_equal(
-        np.asarray(pstates).view(np.uint32), np.asarray(xstates))
-    np.testing.assert_array_equal(np.asarray(ps[: int(xt)]),
-                                  np.asarray(xs[: int(xt)]))
+    np.random.default_rng(0).shuffle(values)
+    blob = prepared_blob("ANSfold-1", values, 128)
+    codec = AnsFold(1, lanes=128)
+    assert blob == codec.encode(values)
+    np.testing.assert_array_equal(codec.decode(blob, len(values)), values)
 
 
 def test_lanes_must_be_power_of_two():
-    """The fmt-2 header stores log2(S) and the placement kernel maps
-    rows to (step, row) with shifts/masks that assume R = S/128 is a
-    power of two — non-pow2 lane counts must be rejected up front
-    (regression: lanes=384 previously reached the engines and either
-    crashed in framing.pack or, on TPU, emitted a corrupt stream)."""
-    import numpy as np
-    import pytest
-    from ans_tpu.models.ans import AnsFold
-    from ans_tpu.parallel import BlockCodec, make_mesh
+    """The fmt-2 header stores log2(S) — non-pow2 lane counts must be
+    rejected up front (regression: lanes=384 previously reached the
+    engines and crashed in framing.pack)."""
+    from lane_ans.parallel import BlockCodec, make_mesh
     with pytest.raises(ValueError, match="power of two"):
         AnsFold(2, lanes=384)
     with pytest.raises(ValueError, match="power of two"):
         BlockCodec("ANSfold-2", make_mesh(1), lanes=384)
-    from ans_tpu.models.engine import encode_pallas_ok
-    from ans_tpu.ops import tables
-    from ans_tpu.reference_model.model import adjust_freqs
-    freqs = np.ones(300, np.uint64)
-    et = tables.build_enc_table(adjust_freqs(freqs, 299, True, 1))
-    codec = BlockCodec("ANSfold-2", make_mesh(1), lanes=256,
-                       engine="pallas")
-    assert not codec._encode_pallas_ok(et, 384)
-    assert codec._encode_pallas_ok(et, 256)
+    with pytest.raises(ValueError, match="power of two"):
+        models.prepare_encoder("ANS", np.arange(100, dtype=np.uint32),
+                               lanes=384)
+    assert AnsInt(lanes=256).lanes == 256

@@ -1,45 +1,21 @@
-"""Pallas decode kernel logic tests (interpreter mode on CPU).
+"""Fused decode kernel (ops/lane_kernel.py) in the Pallas interpreter.
 
 The kernel's correctness is shape- and format-sensitive (lockstep
-rounds, section crossings, hi/lo-decomposed gathers); these tests run it
-in pl.pallas_call(interpret=True) against the XLA engine's output.
+rounds, packed rank fields, section-cut blobs, padded lanes); these
+tests run it with interpret=True against the XLA scan engine's output
+and against the input values.
 """
 
 import numpy as np
 import pytest
 
-from ans_tpu.models import framing
-from ans_tpu.models.ans import AnsFold, AnsInt, AnsMsb
-from ans_tpu.ops import lane_codec, pallas_decode, tables
-from ans_tpu.reference_model import mappings as map_np
-from ans_tpu.reference_model.model import load_prelude
+from lane_ans.models import framing
+from lane_ans.models.ans import AnsFold, AnsInt, AnsMsb
+from lane_ans.ops import tables
+from lane_ans.reference_model import mappings as map_np
+from lane_ans.reference_model.model import adjust_freqs, load_prelude
 
-
-def _run(codec, values, S, TC=32):
-    blob = codec.encode(values)
-    off = 0
-    nfreqs, plen = load_prelude(blob[off:])
-    if isinstance(codec, AnsFold):
-        syms = np.arange(len(nfreqs), dtype=np.uint32)
-        high, nb = map_np.fold_unmap_high(syms, codec.fidelity)
-        dt = tables.build_dec_table(nfreqs, high, nb)
-        has_exc = True
-    elif isinstance(codec, AnsMsb):
-        syms = np.arange(len(nfreqs), dtype=np.uint32)
-        dt = tables.build_dec_table(nfreqs, map_np.msb_unmap_high(syms),
-                                    map_np.msb_exception_bytes(syms))
-        has_exc = True
-    else:
-        dt = tables.build_dec_table(nfreqs)
-        has_exc = False
-    _, states, payload, t_sec, sec_len = framing.parse(blob, off + plen)
-    n = len(values)
-    T = lane_codec.lane_steps(n, S)
-    out = pallas_decode.decode(payload, states, dt, n, S=S, T=T,
-                               has_exc=has_exc, t_sec=t_sec,
-                               sec_len=sec_len, TC=TC, interpret=True)
-    res = np.asarray(out).reshape(-1)[: n]
-    np.testing.assert_array_equal(res, values)
+from kernel_cases import encode_staged, kernel_vs_xla, run_blob
 
 
 @pytest.fixture(scope="module")
@@ -50,72 +26,48 @@ def zdata():
 
 
 def test_pallas_fold(zdata):
-    _run(AnsFold(2, lanes=256), zdata, 256)
+    run_blob("ANSfold-2", AnsFold(2, lanes=256), zdata)
 
 
 def test_pallas_msb(zdata):
-    _run(AnsMsb(lanes=128), zdata[:20000], 128)
+    run_blob("ANSmsb", AnsMsb(lanes=128), zdata[:20000])
 
 
 def test_pallas_int(zdata):
-    _run(AnsInt(lanes=128), (zdata % 3000).astype(np.uint32), 128)
+    run_blob("ANS", AnsInt(lanes=128), (zdata % 3000).astype(np.uint32))
 
 
 def test_pallas_ragged_tail(zdata):
-    v = zdata[: 128 * 37 + 5]
-    _run(AnsFold(1, lanes=128), v, 128)
+    run_blob("ANSfold-1", AnsFold(1, lanes=128), zdata[: 128 * 37 + 5])
 
 
 def test_pallas_multi_section(zdata):
-    """Small section cap forces several sections; states must flow
-    across the cuts."""
-    import jax.numpy as jnp
+    """A blob cut into several sections decodes the same way: the kernel
+    reads the contiguous payload, states flow across the cuts."""
     values = zdata[:30000]
-    S = 128
-    f = 2
+    S, f = 128, 2
     mapped = map_np.fold_map(values, f)
     k, b = map_np.fold_exceptions(values, f)
-    from ans_tpu.reference_model.model import adjust_freqs
     freqs = np.bincount(mapped).astype(np.uint64)
     nfreqs = adjust_freqs(freqs, len(freqs) - 1, True, 1)
-    et = tables.build_enc_table(nfreqs)
-    n = len(values)
-    T = lane_codec.lane_steps(n, S)
-    pad = T * S - n
-    stream, total, states, sb = lane_codec.encode_lanes(
-        jnp.asarray(np.pad(mapped, (0, pad)).reshape(T, S)),
-        jnp.asarray(np.pad(k, (0, pad)).reshape(T, S)),
-        jnp.asarray(np.pad(b, ((0, pad), (0, 0))).reshape(T, S, 3)),
-        jnp.int32(n), jnp.asarray(et.freq), jnp.asarray(et.base),
-        jnp.asarray(et.ub), S=S, T=T, log2m=et.log2m)
-    total = int(total)
-    t_sec, sec_len = framing.choose_sections(np.asarray(sb), total, T,
-                                             cap_bytes=8192)
+    stream, total, states, sb, T = encode_staged(mapped, k, b, nfreqs, S)
+    t_sec, sec_len = framing.choose_sections(sb, total, T, cap_bytes=8192)
     assert len(sec_len) > 2
+    blob = framing.pack(states, stream, t_sec, sec_len)
+    _, st2, payload, _, _ = framing.parse(blob, 0)
     syms = np.arange(len(nfreqs), dtype=np.uint32)
     high, nb = map_np.fold_unmap_high(syms, f)
     dt = tables.build_dec_table(nfreqs, high, nb)
-    out = pallas_decode.decode(np.asarray(stream[:total]),
-                               np.asarray(states), dt, n, S=S, T=T,
-                               has_exc=True, t_sec=t_sec, sec_len=sec_len,
-                               TC=32, interpret=True)
-    res = np.asarray(out).reshape(-1)[:n]
-    np.testing.assert_array_equal(res, values)
+    kernel_vs_xla(payload, st2, dt, len(values), S, values)
 
 
 def test_pallas_int_big_frame(zdata):
-    """Direct kernel with Mr > _PLANE_LOOP_MIN_ROWS: the slot tables
-    stay VMEM refs scanned by _lookup_multi_loop's fori_loop (the
-    unrolled scan OOMed the Mosaic kernel stack at Mr = 512 on chip).
-    The interpreter run pins the loop path's correctness."""
+    """A large frame: per-slot tables of >= 2^15 entries gathered by
+    slot."""
     rng = np.random.default_rng(11)
     v = np.concatenate([
         (zdata % 6000).astype(np.uint32),
         rng.integers(0, 6000, 20000).astype(np.uint32)])
-    codec = AnsInt(lanes=128)
-    blob = codec.encode(v)
+    blob = run_blob("ANS", AnsInt(lanes=128), v)
     nfreqs, _ = load_prelude(blob)
-    dt = tables.build_dec_table(nfreqs)
-    Mr = -(-dt.frame_size // 128)
-    assert Mr > pallas_decode._PLANE_LOOP_MIN_ROWS, Mr
-    _run(codec, v, 128)
+    assert int(np.asarray(nfreqs).sum()) >= (1 << 15)

@@ -1,52 +1,27 @@
-"""Pivot-search Pallas decode kernel tests (interpreter mode on CPU).
+"""Fused decode kernel over every decode-table shape (interpreter mode).
 
-The search kernel (ops/pallas_decode.py `_kernel_search`) replaces the
-per-slot decode table with a bitwise binary search over present-symbol
-cumulative bases, so its cost scales with sigma instead of the frame
-size M.  These tests round-trip it against the models' encoders for
-every table shape: fold/msb (exceptions, packed23), dense identity
-ans_int, sparse ans_int (value table), un-packable high words, frames
-with log2m > 16 (3 renorm rounds), and multi-section streams.
+The kernel reads the same per-slot tables as the XLA scan engine
+(tables.materialize_slots) under every coder: fold/msb (exceptions),
+dense and sparse identity ans_int, uncapped frames, high words >= 2^30,
+frames with log2m > 16 (3 renorm rounds), multi-section streams and a
+single-symbol alphabet.  Each case must match the XLA scan bit for bit
+and reproduce the input; plus the engine choice and the kernel's
+lowering for a CUDA device.
 """
 
-import dataclasses
+import functools
 
 import numpy as np
 import pytest
 
-from ans_tpu.models import framing
-from ans_tpu.models.ans import AnsFold, AnsInt, AnsMsb
-from ans_tpu.ops import lane_codec, pallas_decode, tables
-from ans_tpu.reference_model import mappings as map_np
-from ans_tpu.reference_model.model import adjust_freqs, load_prelude
+from lane_ans import models
+from lane_ans.models import framing
+from lane_ans.models.ans import AnsFold, AnsInt, AnsMsb
+from lane_ans.ops import lane_kernel, tables
+from lane_ans.reference_model import mappings as map_np
+from lane_ans.reference_model.model import adjust_freqs, load_prelude
 
-
-def _search_table(codec, nfreqs):
-    if isinstance(codec, AnsFold):
-        syms = np.arange(len(nfreqs), dtype=np.uint32)
-        high, nb = map_np.fold_unmap_high(syms, codec.fidelity)
-        return tables.build_search_table(nfreqs, high, nb)
-    if isinstance(codec, AnsMsb):
-        syms = np.arange(len(nfreqs), dtype=np.uint32)
-        return tables.build_search_table(
-            nfreqs, map_np.msb_unmap_high(syms),
-            map_np.msb_exception_bytes(syms))
-    return tables.build_search_table(nfreqs)
-
-
-def _run(codec, values, S, TC=32):
-    blob = codec.encode(values)
-    nfreqs, plen = load_prelude(blob)
-    st = _search_table(codec, nfreqs)
-    _, states, payload, t_sec, sec_len = framing.parse(blob, plen)
-    n = len(values)
-    T = lane_codec.lane_steps(n, S)
-    out = pallas_decode.decode_search(payload, states, st, n, S=S, T=T,
-                                      t_sec=t_sec, sec_len=sec_len,
-                                      TC=TC, interpret=True)
-    res = np.asarray(out).reshape(-1)[: n]
-    np.testing.assert_array_equal(res, values)
-    return st
+from kernel_cases import encode_staged, kernel_vs_xla, run_blob
 
 
 @pytest.fixture(scope="module")
@@ -57,184 +32,141 @@ def zdata():
 
 
 def test_search_fold(zdata):
-    st = _run(AnsFold(2, lanes=256), zdata, 256)
-    assert st.high is not None
+    run_blob("ANSfold-2", AnsFold(2, lanes=256), zdata)
 
 
 def test_search_msb(zdata):
-    _run(AnsMsb(lanes=128), zdata[:20000], 128)
+    run_blob("ANSmsb", AnsMsb(lanes=128), zdata[:20000])
 
 
 def test_search_int_identity(zdata):
-    """Every symbol present -> the search index IS the value."""
-    st = _run(AnsInt(lanes=128), (zdata % 512).astype(np.uint32), 128)
-    assert st.val is None and st.high is None
+    """Every symbol 0..511 present: the symbol IS the value."""
+    v = (zdata % 512).astype(np.uint32)
+    blob = run_blob("ANS", AnsInt(lanes=128), v)
+    nfreqs, _ = load_prelude(blob)
+    assert (np.asarray(nfreqs) > 0).all()
 
 
 def test_search_int_sparse_val_table(zdata):
-    """Gaps in the alphabet -> dense ids need the raw-value lookup."""
+    """Gaps in the alphabet: absent symbols own no slots."""
     sparse = (zdata % 300).astype(np.uint32) * 7 + 3
-    st = _run(AnsInt(lanes=128), sparse, 128)
-    assert st.val is not None
+    blob = run_blob("ANS", AnsInt(lanes=128), sparse)
+    nfreqs, _ = load_prelude(blob)
+    assert (np.asarray(nfreqs) == 0).any()
 
 
 def test_search_int_uncapped_frame(zdata):
-    """max_frame=None: reference-exact frames, M decoupled from cost."""
-    st = _run(AnsInt(lanes=128, max_frame=None),
-              (zdata % 3000).astype(np.uint32), 128)
-    assert st.frame_size > (1 << 14)
+    """max_frame=None: reference-exact frames."""
+    blob = run_blob("ANS", AnsInt(lanes=128, max_frame=None),
+                    (zdata % 3000).astype(np.uint32))
+    nfreqs, _ = load_prelude(blob)
+    assert int(np.asarray(nfreqs).sum()) > (1 << 14)
 
 
 def test_search_ragged_tail(zdata):
-    _run(AnsFold(1, lanes=128), zdata[: 128 * 37 + 5], 128)
+    run_blob("ANSfold-1", AnsFold(1, lanes=128), zdata[: 128 * 37 + 5])
 
 
 def test_search_unpacked_high():
-    """high values >= 2^30 defeat the packed23 word; the kernel must
-    fall back to separate high/nb lookups (rfold most-frequent remaps
-    can put arbitrary u32 values in high)."""
+    """high values >= 2^30 (rfold most-frequent remaps can put arbitrary
+    u32 values in high): the kernel adds them unpacked."""
     rng = np.random.default_rng(11)
     values = rng.integers(0, 200, size=20000).astype(np.uint32)
-    codec = AnsInt(lanes=128)
-    blob = codec.encode(values)
+    blob = AnsInt(lanes=128).encode(values)
     nfreqs, plen = load_prelude(blob)
     syms = np.arange(len(nfreqs), dtype=np.uint32)
     # pretend decode mapping: value = high[sym] (nb=0), with big highs
-    high = syms + np.uint32(3 << 30)
-    nb = np.zeros_like(syms)
-    st = tables.build_search_table(nfreqs, high, nb)
-    _, states, payload, t_sec, sec_len = framing.parse(blob, plen)
-    n = len(values)
-    T = lane_codec.lane_steps(n, S=128)
-    args, kw = pallas_decode.stage_search(
-        payload, states, st, n, S=128, T=T, t_sec=t_sec,
-        sec_len=sec_len, TC=32, interpret=True)
-    assert not kw["packed23"]
-    out = pallas_decode._call_search(*args, **kw)
-    res = np.asarray(out).reshape(-1)[: n]
-    np.testing.assert_array_equal(
-        res, values + np.uint32(3 << 30))
+    dt = tables.build_dec_table(nfreqs, syms + np.uint32(3 << 30),
+                                np.zeros_like(syms))
+    S, states, payload, _, _ = framing.parse(blob, plen)
+    kernel_vs_xla(payload, states, dt, len(values), S,
+                  values + np.uint32(3 << 30))
 
 
 def test_search_three_renorm_rounds():
-    """log2m > 16 forces NR=3; build the frame by hand (adjust_freqs
-    rarely chooses frames this large for small test inputs)."""
+    """log2m > 16 makes some steps read 3 renorm bytes; the frame is
+    built by hand (adjust_freqs rarely picks one this large for small
+    inputs)."""
     rng = np.random.default_rng(13)
     sigma = 4096
     values = rng.integers(0, sigma, size=50000).astype(np.uint32)
     nfreqs = np.full(sigma, 32, dtype=np.uint64)  # M = 2^17
-    import jax.numpy as jnp
-    et = tables.build_enc_table(nfreqs)
-    assert et.log2m == 17
-    S, n = 128, len(values)
-    T = lane_codec.lane_steps(n, S)
-    pad = T * S - n
-    stream, total, states, sb = lane_codec.encode_lanes(
-        jnp.asarray(np.pad(values, (0, pad)).reshape(T, S)),
-        jnp.zeros((T, S), jnp.uint32),
-        jnp.zeros((T, S, 3), jnp.uint8),
-        jnp.int32(n), jnp.asarray(et.freq), jnp.asarray(et.base),
-        jnp.asarray(et.ub), S=S, T=T, log2m=et.log2m)
-    total = int(total)
-    t_sec, sec_len = framing.choose_sections(np.asarray(sb), total, T)
-    st = tables.build_search_table(nfreqs)
-    args, kw = pallas_decode.stage_search(
-        np.asarray(stream[:total]), np.asarray(states), st, n, S=S, T=T,
-        t_sec=t_sec, sec_len=sec_len, TC=32, interpret=True)
-    assert kw["NR"] == 3
-    out = pallas_decode._call_search(*args, **kw)
-    res = np.asarray(out).reshape(-1)[: n]
-    np.testing.assert_array_equal(res, values)
+    n = len(values)
+    stream, total, states, sb, T = encode_staged(
+        values, np.zeros(n, np.uint32), np.zeros((n, 3), np.uint8),
+        nfreqs, 128)
+    dt = tables.build_dec_table(nfreqs)
+    assert dt.log2m == 17
+    kernel_vs_xla(stream, states, dt, n, 128, values)
 
 
 def test_search_multi_section(zdata):
-    """Small section cap forces several sections; states and the
-    search must flow across the cuts."""
-    import jax.numpy as jnp
+    """Small section cap forces several sections; the msb coder's
+    exception bytes cross the cuts too."""
     values = zdata[:30000]
-    S, f = 128, 2
-    mapped = map_np.fold_map(values, f)
-    k, b = map_np.fold_exceptions(values, f)
+    S = 128
+    mapped = map_np.msb_map(values)
+    k = map_np.msb_exception_bytes(mapped)
+    b = np.stack([(values >> (8 * i)) & 0xFF for i in range(3)],
+                 axis=1).astype(np.uint8)
     freqs = np.bincount(mapped).astype(np.uint64)
     nfreqs = adjust_freqs(freqs, len(freqs) - 1, True, 1)
-    et = tables.build_enc_table(nfreqs)
-    n = len(values)
-    T = lane_codec.lane_steps(n, S)
-    pad = T * S - n
-    stream, total, states, sb = lane_codec.encode_lanes(
-        jnp.asarray(np.pad(mapped, (0, pad)).reshape(T, S)),
-        jnp.asarray(np.pad(k, (0, pad)).reshape(T, S)),
-        jnp.asarray(np.pad(b, ((0, pad), (0, 0))).reshape(T, S, 3)),
-        jnp.int32(n), jnp.asarray(et.freq), jnp.asarray(et.base),
-        jnp.asarray(et.ub), S=S, T=T, log2m=et.log2m)
-    total = int(total)
-    t_sec, sec_len = framing.choose_sections(np.asarray(sb), total, T,
-                                             cap_bytes=8192)
-    assert len(sec_len) > 2
     syms = np.arange(len(nfreqs), dtype=np.uint32)
-    high, nb = map_np.fold_unmap_high(syms, f)
-    st = tables.build_search_table(nfreqs, high, nb)
-    out = pallas_decode.decode_search(
-        np.asarray(stream[:total]), np.asarray(states), st, n, S=S, T=T,
-        t_sec=t_sec, sec_len=sec_len, TC=32, interpret=True)
-    res = np.asarray(out).reshape(-1)[:n]
-    np.testing.assert_array_equal(res, values)
+    dt = tables.build_dec_table(nfreqs, map_np.msb_unmap_high(syms),
+                                map_np.msb_exception_bytes(syms))
+    stream, total, states, sb, T = encode_staged(mapped, k, b, nfreqs, S)
+    t_sec, sec_len = framing.choose_sections(sb, total, T, cap_bytes=8192)
+    assert len(sec_len) > 2
+    blob = framing.pack(states, stream, t_sec, sec_len)
+    _, st2, payload, _, _ = framing.parse(blob, 0)
+    kernel_vs_xla(payload, st2, dt, len(values), S, values)
 
 
 def test_single_symbol_alphabet():
-    """sigma == 1: depth 0, no pivots, f == M (zero-bit symbols)."""
+    """sigma == 1: f == M, zero-bit symbols, no stream bytes."""
     values = np.full(5000, 7, dtype=np.uint32)
-    _run(AnsInt(lanes=128), values, 128)
+    run_blob("ANS", AnsInt(lanes=128), values)
 
 
-def test_engine_cost_model():
-    """choose_decode_engine picks search for big frames, honors env."""
-    from ans_tpu.models import engine
-    nfreqs = np.full(4096, 32, dtype=np.uint64)  # M = 2^17, sigma 4096
-    dt = tables.build_dec_table(nfreqs)
-    assert engine._search_cost(dt) is not None
-    small = np.full(256, 4, dtype=np.uint64)  # M = 1024, sigma 256
-    dts = tables.build_dec_table(small)
-    assert engine._search_cost(dts) < engine._search_cost(dt)
+@pytest.mark.parametrize("backend,S,want", [
+    ("cpu", 4096, "xla"), ("gpu", 4096, "kernel"), ("gpu", 32, "kernel"),
+    ("gpu", lane_kernel.MAX_LANES, "kernel"),
+    ("gpu", 2 * lane_kernel.MAX_LANES, "xla"), ("cpu", 32, "xla")])
+def test_engine_cost_model(monkeypatch, backend, S, want):
+    """Engine choice: the kernel on a GPU backend within its lane cap,
+    the XLA scan otherwise."""
+    from lane_ans.models import engine
+    monkeypatch.setattr(engine.jax, "default_backend", lambda: backend)
+    assert engine.choose_engine(S) == want
 
 
-def test_engine_env_force_ineligible_falls_back(zdata, monkeypatch):
-    """A forced ANS_TPU_DECODE_ENGINE outside its eligibility envelope
-    must fall back (with a warning) instead of staging garbage."""
-    from ans_tpu.models import engine
-    # sigma above the pivot-search cap: 'search' is ineligible
-    nfreqs = np.full(engine.SEARCH_MAX_SIGMA * 2, 2, dtype=np.uint64)
-    dt = tables.build_dec_table(nfreqs)
-    monkeypatch.setenv("ANS_TPU_DECODE_ENGINE", "search")
-    with pytest.warns(UserWarning, match="not eligible"):
-        assert engine.choose_decode_engine(dt, 256) == "xla"
-    # an unknown engine name falls back too
-    monkeypatch.setenv("ANS_TPU_DECODE_ENGINE", "warpspeed")
-    with pytest.warns(UserWarning, match="not eligible"):
-        assert engine.choose_decode_engine(dt, 256) == "xla"
-    # end-to-end decode under the forced env still round-trips
-    monkeypatch.setenv("ANS_TPU_DECODE_ENGINE", "search")
-    values = zdata[:20000]
-    codec = AnsInt(lanes=128)
-    blob = codec.encode(values)
-    with pytest.warns(UserWarning, match="not eligible"):
-        out = codec.decode(blob, len(values))
-    np.testing.assert_array_equal(out, values)
+def test_engine_env_force_ineligible_falls_back(zdata):
+    """An explicit engine must be a real one: unknown names raise
+    instead of silently picking another engine."""
+    blob = AnsInt(lanes=128).encode(zdata[:2000] % 100)
+    with pytest.raises(ValueError, match="unknown decode engine"):
+        models.prepare_decoder("ANS", blob, 2000, engine="search")
+    prep = models.prepare_decoder("ANS", blob, 2000)
+    assert prep.engine == "xla"  # the CPU backend's engine
 
 
-def test_union_window_path_matches_split(zdata):
-    """split_win=False (single worst-case union window) must stay
-    equivalent to the split default — it remains the documented
-    fallback and the comparison baseline."""
-    codec = AnsFold(2, lanes=256)
-    blob = codec.encode(zdata)
-    nfreqs, plen = load_prelude(blob)
-    st = _search_table(codec, nfreqs)
-    S, states, payload, t_sec, sec_len = framing.parse(blob, plen)
-    n = len(zdata)
-    T = lane_codec.lane_steps(n, S)
-    outs = [np.asarray(pallas_decode.decode_search(
-        payload, states, st, n, S=S, T=T, t_sec=t_sec, sec_len=sec_len,
-        TC=32, split_win=sw, interpret=True)) for sw in (False, True)]
-    np.testing.assert_array_equal(outs[0], outs[1])
-    np.testing.assert_array_equal(outs[0].reshape(-1)[:n], zdata)
+@pytest.mark.parametrize("S,has_exc", [(1, False), (256, True),
+                                        (4096, True), (4096, False),
+                                        (lane_kernel.MAX_LANES, True)])
+def test_union_window_path_matches_split(S, has_exc):
+    """The kernel lowers through Triton for a CUDA device (checked here
+    without one): one `lane_decode` call with the warps policy's count."""
+    import jax
+    import jax.numpy as jnp
+    T, M = 4, 1 << 12
+    u32 = lambda *shape: jax.ShapeDtypeStruct(shape, jnp.uint32)
+    args = (jax.ShapeDtypeStruct((6 * T * S + 8,), jnp.uint8), u32(S),
+            u32(M), u32(M), u32(M), u32(M if has_exc else 1),
+            jax.ShapeDtypeStruct((), jnp.int32))
+    text = jax.jit(functools.partial(
+        lane_kernel.decode, S=S, T=T, log2m=12, has_exc=has_exc)).trace(
+        *args).lower(lowering_platforms=("cuda",)).as_text()
+    assert text.count("xla.gpu.triton") == 1
+    assert 'name = "lane_decode"' in text
+    warps = lane_kernel.num_warps(lane_kernel.padded_lanes(S))
+    assert f"num_warps = {warps} : i32" in text

@@ -1,4 +1,4 @@
-"""Multi-chip block runtime tests on the virtual 8-device CPU mesh.
+"""Multi-device block runtime tests on the virtual 8-device CPU mesh.
 
 The reference offers no distributed mode to mirror (SURVEY.md section 4
 item c): these tests assert the net-new guarantees — round-trip through
@@ -6,10 +6,12 @@ the ATFB container, determinism across mesh sizes, and single-device
 equivalence of the shared-model pipeline.
 """
 
+import functools
+
 import numpy as np
 import pytest
 
-from ans_tpu.parallel import BlockCodec, make_mesh
+from lane_ans.parallel import BlockCodec, make_mesh
 
 
 @pytest.fixture(scope="module")
@@ -64,40 +66,51 @@ def test_graft_entry_dryrun():
     g.dryrun_multichip(8)
 
 
-# -- production-kernel (Pallas) block engine --------------------------------
+# -- the per-device decode kernel inside shard_map ---------------------------
+
+@pytest.fixture
+def kernel_engine(monkeypatch):
+    """Route BlockCodec's per-device decode through the fused kernel, in
+    the Pallas interpreter (the CPU mesh has no GPU to compile for)."""
+    from lane_ans.models import engine
+    from lane_ans.ops import lane_kernel
+    monkeypatch.setattr(engine, "choose_engine", lambda S: "kernel")
+    monkeypatch.setattr(lane_kernel, "decode", functools.partial(
+        lane_kernel.decode, interpret=True))
+
 
 @pytest.mark.parametrize("method", ["ANSfold-2", "ANSmsb", "ANS",
                                     "ANSrfold-1", "ANSsint-2",
                                     "ANSsmsb-80"])
-def test_blocked_pallas_roundtrip(data, method):
-    """shard_map bodies run the real scan/placement/decode kernels
-    (interpret mode on the CPU mesh)."""
+def test_blocked_pallas_roundtrip(data, method, kernel_engine):
+    """shard_map decode bodies run the fused decode kernel."""
     src = data if "sint" not in method and method != "ANS" else (
         data % 4096).astype(np.uint32)
-    codec = BlockCodec(method, make_mesh(8), lanes=128, engine="pallas",
-                       interpret=True)
+    codec = BlockCodec(method, make_mesh(8), lanes=128)
     blob = codec.encode(src[:20000])
     np.testing.assert_array_equal(codec.decode(blob, 20000), src[:20000])
 
 
-def test_blocked_engines_cross_decode(data):
-    """A container encoded by the Pallas engine decodes on the XLA
-    engine and vice versa (one wire format, two engines)."""
+def test_blocked_engines_cross_decode(data, monkeypatch):
+    """One container, both per-device engines: the XLA scan and the
+    decode kernel decode it identically."""
     src = data[:20000]
-    mesh = make_mesh(4)
-    fast = BlockCodec("ANSfold-2", mesh, lanes=128, engine="pallas",
-                      interpret=True)
-    slow = BlockCodec("ANSfold-2", mesh, lanes=128, engine="xla")
-    np.testing.assert_array_equal(slow.decode(fast.encode(src), len(src)),
-                                  src)
-    np.testing.assert_array_equal(fast.decode(slow.encode(src), len(src)),
-                                  src)
+    codec = BlockCodec("ANSfold-2", make_mesh(4), lanes=128)
+    blob = codec.encode(src)
+    np.testing.assert_array_equal(codec.decode(blob, len(src)), src)
+    from lane_ans.models import engine
+    from lane_ans.ops import lane_kernel
+    monkeypatch.setattr(engine, "choose_engine", lambda S: "kernel")
+    monkeypatch.setattr(lane_kernel, "decode", functools.partial(
+        lane_kernel.decode, interpret=True))
+    np.testing.assert_array_equal(
+        BlockCodec("ANSfold-2", make_mesh(4), lanes=128).decode(
+            blob, len(src)), src)
 
 
-def test_blocked_pallas_ragged(data):
+def test_blocked_pallas_ragged(data, kernel_engine):
     src = data[: 8 * 2381 + 5]
-    codec = BlockCodec("ANSmsb", make_mesh(8), lanes=128, engine="pallas",
-                       interpret=True)
+    codec = BlockCodec("ANSmsb", make_mesh(8), lanes=128)
     np.testing.assert_array_equal(codec.decode(codec.encode(src)), src)
 
 
@@ -107,7 +120,7 @@ def test_blocked_model_independent_of_padding_and_mesh():
     subtracted (regression: up to D-1 phantom symbol-0 counts made the
     wire bytes depend on the mesh size)."""
     import struct
-    from ans_tpu.parallel import BlockCodec, make_mesh
+    from lane_ans.parallel import BlockCodec, make_mesh
     rng = np.random.default_rng(11)
     v = (rng.zipf(1.5, 4001) - 1).clip(0, 1 << 16).astype(np.uint32) + 1
     def prelude_of(blob):
@@ -123,7 +136,7 @@ def test_blocked_model_independent_of_padding_and_mesh():
 
 
 def test_blocked_decode_rejects_wrong_n():
-    from ans_tpu.parallel import BlockCodec, make_mesh
+    from lane_ans.parallel import BlockCodec, make_mesh
     import pytest
     rng = np.random.default_rng(12)
     v = (rng.zipf(1.5, 2000) - 1).clip(0, 1 << 16).astype(np.uint32)

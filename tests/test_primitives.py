@@ -11,8 +11,8 @@ plus vbyte and BWT/MTF primitives.
 import numpy as np
 import pytest
 
-from ans_tpu.reference_model import interp, mappings, vbyte
-from ans_tpu.utils import bwt
+from lane_ans.reference_model import interp, mappings, vbyte
+from lane_ans.utils import bwt
 
 
 @pytest.mark.parametrize("fidelity", list(range(1, 9)))
@@ -132,7 +132,7 @@ def test_arith_scale_counts_heavy_hitter_fast():
     old one-unit-at-a-time correction loop (regression: now O(sigma
     log sigma) waterfill)."""
     import time
-    from ans_tpu.models.arith import _scale_counts
+    from lane_ans.models.arith import _scale_counts
     counts = np.concatenate([[10_000_000], np.ones(60_000)]).astype(
         np.int64)
     t0 = time.perf_counter()
@@ -145,7 +145,7 @@ def test_adjust_freqs_rejects_all_zero_histogram():
     """The frame-doubling search never terminates on a zero histogram
     (regression: pure-python hung, native wrapped through c_int64)."""
     import pytest
-    from ans_tpu.reference_model import model
+    from lane_ans.reference_model import model
     with pytest.raises(ValueError, match="all-zero"):
         model.adjust_freqs(np.zeros(4, np.uint64), 3, False)
 
@@ -155,8 +155,8 @@ def test_native_compat_decode_rejects_zero_frame_prelude():
     raise, not index mask=2^64-1 into the slot tables (regression:
     native SIGSEGV)."""
     import pytest
-    from ans_tpu.reference_model import interp as ip, vbyte, model
-    from ans_tpu.reference_model import rans_compat
+    from lane_ans.reference_model import interp as ip, vbyte, model
+    from lane_ans.reference_model import rans_compat
     max_sym, frame_log = 3, 4
     n = max_sym + 1
     u = (1 << frame_log) + n + 1
@@ -173,7 +173,7 @@ def test_shuff_truncated_stream_raises():
     """Truncated shuff payloads must fail, not silently emit the
     shortest codeword from the zero-refilled accumulator."""
     import pytest
-    from ans_tpu.models.shuff import Shuff
+    from lane_ans.models.shuff import Shuff
     v = (np.random.default_rng(3).zipf(1.3, 30000) - 1).astype(np.uint32)
     blob = Shuff().encode(v)
     with pytest.raises(ValueError):

@@ -8,7 +8,7 @@ shortcut (pseudo_adaptive.cpp:120) and the BPI-vs-block-size tradeoff.
 import numpy as np
 import pytest
 
-from ans_tpu.models.pseudo_adaptive import PseudoAdaptive
+from lane_ans.models.pseudo_adaptive import PseudoAdaptive
 
 
 @pytest.fixture(scope="module")
@@ -41,7 +41,7 @@ def test_single_symbol_blocks():
 
 
 def test_adaptive_beats_global_on_drifting_data(drifting):
-    from ans_tpu import models
+    from lane_ans import models
     codec = PseudoAdaptive(4096, "int", lanes=32)
     adaptive = len(codec.encode(drifting))
     global_ = len(models.get("ANS", "compat").encode(drifting))
@@ -54,7 +54,7 @@ def test_any_instance_decodes_any_container():
     default-constructed instance mis-decoded or crashed on containers
     from differently-configured encoders)."""
     import numpy as np
-    from ans_tpu.models.pseudo_adaptive import PseudoAdaptive
+    from lane_ans.models.pseudo_adaptive import PseudoAdaptive
     rng = np.random.default_rng(9)
     v = (rng.zipf(1.5, 5000) - 1).clip(0, 1 << 20).astype(np.uint32)
     v[:600] += 300  # per-block sigma > 256 somewhere

@@ -21,7 +21,7 @@ import pathlib
 import numpy as np
 import pytest
 
-from ans_tpu.reference_model import model, parity, rans_compat as rc
+from lane_ans.reference_model import model, parity, rans_compat as rc
 
 FIX = pathlib.Path(__file__).parent / "fixtures"
 
@@ -53,7 +53,7 @@ def test_parity(case):
     ref = (FIX / f"{dname}.{method}.ref").read_bytes()
 
     if method == "shuff":
-        from ans_tpu.reference_model.shuff_compat import ShuffCompat
+        from lane_ans.reference_model.shuff_compat import ShuffCompat
         codec = ShuffCompat()
         mine = codec.encode(data)
         # the shuff bitstream is fully deterministic (no uninitialized

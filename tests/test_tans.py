@@ -9,8 +9,8 @@ the empirical byte entropy (FSE's own regime)."""
 import numpy as np
 import pytest
 
-from ans_tpu.models import tans
-from ans_tpu.reference_model.rans_compat import byte_adjust_freqs
+from lane_ans.models import tans
+from lane_ans.reference_model.rans_compat import byte_adjust_freqs
 
 
 def _tables(data):
@@ -40,7 +40,7 @@ def test_python_roundtrip(case):
 
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_native_matches_python(case):
-    from ans_tpu import native
+    from lane_ans import native
     if native.lib is None:
         pytest.skip("native backend not built")
     data = CASES[case](np.random.default_rng(3))
@@ -83,7 +83,7 @@ def test_compression_near_entropy():
 
 
 def test_fse_method_roundtrip_and_empty():
-    from ans_tpu import models
+    from lane_ans import models
     c = models.get("fse")
     vals = (np.random.default_rng(5).zipf(1.2, 8192) - 1).astype(
         np.uint32)
@@ -94,7 +94,7 @@ def test_fse_method_roundtrip_and_empty():
 
 
 def test_native_hist_u8_matches_bincount():
-    from ans_tpu import native
+    from lane_ans import native
     if native.lib is None:
         pytest.skip("native backend not built")
     data = np.random.default_rng(13).integers(
@@ -109,14 +109,14 @@ def test_native_hist_u8_matches_bincount():
 def test_native_decode_rejects_corrupt_streams():
     """Wire-supplied states/bit-count must fail cleanly, never read out
     of the table or before the payload buffer."""
-    from ans_tpu import native
+    from lane_ans import native
     if native.lib is None:
         pytest.skip("native backend not built")
     data = CASES["zipf"](np.random.default_rng(17)).tobytes()
     bt = tans.ByteTans()
     blob = bt.encode(data)
-    from ans_tpu.constants import BYTE_MAX_FRAME_SIZE, BYTE_MAX_SIGMA
-    from ans_tpu.reference_model import interp
+    from lane_ans.constants import BYTE_MAX_FRAME_SIZE, BYTE_MAX_SIGMA
+    from lane_ans.reference_model import interp
     _, words = interp.decode(blob, BYTE_MAX_SIGMA,
                              BYTE_MAX_FRAME_SIZE + BYTE_MAX_SIGMA)
     off = words * 4

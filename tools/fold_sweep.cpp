@@ -1,6 +1,6 @@
 // Exhaustive u32 inverse-property sweep for the fold and msb mappings.
 //
-// TPU-framework counterpart of the reference's (unbuilt) src/test.cpp:49-72,
+// lane_ans counterpart of the reference's (unbuilt) src/test.cpp:49-72,
 // which sweeps all 2^32 inputs checking undo(fold(x)) == x for every
 // fidelity.  This tool re-expresses the mappings independently
 // (reference semantics: ans_fold.hpp:38-65 fold, :150-175 undo;

@@ -1,15 +1,16 @@
-"""Randomized lane-engine round-trip fuzz: every eligible Pallas decode
-kernel in interpreter mode vs the XLA engine vs the original data.
+"""Randomized lane-engine fuzz: the fused decode kernel in interpreter
+mode vs the XLA scan engine vs the original data, plus the prepared
+encoder vs the one-shot encoder.
 
 tools/fuzz_parity.py proves the compat wire against the C++ oracle;
-this covers the TPU-native side the oracle can't see: the fmt-2 lane
-wire, the grouped/search/direct kernel family, and the staging logic,
-on random tables (random group shapes, pivot depths, exception mixes)
-rather than the fixed test fixtures.  Runs chip-free (interpret mode),
-so it is the pre-flight check for new kernel code before TPU time.
+this covers the device side the oracle can't see: the fmt-2 lane wire,
+the decode kernel and the staging logic, on random tables (random group
+shapes, exception mixes, escape plans) rather than the fixed test
+fixtures.  Runs on the CPU (interpret mode), so it is the pre-flight
+check for new decode-kernel code before chip time.
 
 Usage: python tools/fuzz_lane.py [--cases 40] [--seed 0] [--keep-going]
-Exit 0 = every case round-tripped on every eligible engine.
+Exit 0 = every case round-tripped through both engines.
 """
 
 from __future__ import annotations
@@ -33,64 +34,37 @@ METHODS = {
 }
 
 
-def eligible_engines(dt):
-    from ans_tpu.models.engine import (PALLAS_MAX_FRAME, _search_cost)
-    eng = []
-    if dt.layout is not None:
-        eng.append("grouped")
-    else:
-        fmax = (int(dt.freq.max()) if dt.freq is not None
-                else int(np.asarray(dt.nfreqs).max()))
-        if dt.frame_size <= PALLAS_MAX_FRAME and fmax < (1 << 16):
-            eng.append("direct")
-        if _search_cost(dt) is not None:
-            eng.append("search")
-    return eng
-
-
 def run_case(name, case_name, data):
-    import os
-
-    from ans_tpu import models
+    """Returns the table kind the case exercised: 'grouped', 'escape'
+    or 'plain'."""
+    from lane_ans import models
+    from lane_ans.ops import escape
+    from lane_ans.reference_model.model import load_prelude
     codec = models.get(name, "lane")
     codec.lanes = 256  # small S keeps interpret mode fast
     n = len(data)
-    blob = codec.encode(data)  # XLA scan encode (env unset)
-    out = codec.decode(blob, n)  # XLA engine on CPU
-    np.testing.assert_array_equal(out, data,
+    blob = codec.encode(data)
+    np.testing.assert_array_equal(codec.decode(blob, n), data,
                                   err_msg=f"{name} {case_name}: xla")
+    kern = models.prepare_decoder(name, blob, n, engine="kernel",
+                                  interpret=True)
+    xla = models.prepare_decoder(name, blob, n, engine="xla")
+    ko = np.asarray(kern())
+    np.testing.assert_array_equal(
+        ko, np.asarray(xla()), err_msg=f"{name} {case_name}: kernel!=xla")
+    np.testing.assert_array_equal(kern.to_host(ko), data,
+                                  err_msg=f"{name} {case_name}: kernel")
+    pe = models.prepare_encoder(name, data, lanes=256)
+    assert pe.prelude + pe.to_bytes(*pe()) == bytes(blob), (
+        f"{name} {case_name}: prepared encode bytes differ")
     dt, _ = codec._dec_table(bytes(blob))
-    engines = eligible_engines(dt)
-    for eng in engines:
-        prep = models.prepare_decoder(name, blob, n, TC=32, engine=eng,
-                                      interpret=True)
-        got = prep.to_host(prep())
-        np.testing.assert_array_equal(
-            got, data, err_msg=f"{name} {case_name}: {eng} kernel")
-    # ANS_TPU_INTERPRET drives the PUBLIC pipeline through the Pallas
-    # encode kernels (scan + placement) and auto-chosen decode kernel —
-    # the exact production dispatch, interpreted.  The kernel encode
-    # must reproduce the XLA scan's bytes (one format, two engines).
-    # Gate on ENCODE eligibility (grouped layout, or the plain scan's
-    # alphabet cap), not decode eligibility — otherwise the interpret
-    # encode silently falls back to the same XLA path and the byte
-    # equality is vacuous.
-    enc_kernel_ok = (dt.layout is not None
-                     or len(dt.nfreqs) <= (1 << 13))
-    if engines and enc_kernel_ok:
-        os.environ["ANS_TPU_INTERPRET"] = "1"
-        try:
-            kblob = codec.encode(data)
-            kout = codec.decode(kblob, n)
-        finally:
-            del os.environ["ANS_TPU_INTERPRET"]
-        np.testing.assert_array_equal(
-            kout, data, err_msg=f"{name} {case_name}: e2e kernel")
-        assert bytes(kblob) == bytes(blob), (
-            f"{name} {case_name}: kernel encode bytes differ from the "
-            f"XLA scan's (len {len(kblob)} vs {len(blob)})")
-        engines = engines + ["enc"]
-    return engines
+    if dt.layout is not None:
+        return "grouped"
+    if name == "ANS" or name.startswith("ANSsint"):
+        nfreqs, _ = load_prelude(bytes(blob))
+        if escape.plan_from_freqs(nfreqs) is not None:
+            return "escape"
+    return "plain"
 
 
 def main():
@@ -100,16 +74,12 @@ def main():
     ap.add_argument("--methods", default=",".join(METHODS))
     ap.add_argument("--keep-going", action="store_true")
     args = ap.parse_args()
-    import os
-    if os.environ.get("ANS_TPU_INTERPRET"):
-        sys.exit("unset ANS_TPU_INTERPRET: this tool toggles it per "
-                 "case to differentiate kernel vs XLA encodes")
     names = args.methods.split(",")
     rng = np.random.default_rng(args.seed)
     counts: dict[str, int] = {}
     failed = 0
 
-    # guaranteed grouped-engine coverage: random cases rarely produce
+    # guaranteed grouped-layout coverage: random cases rarely produce
     # the sigma >= 8193 live symbols that select the grouped layout
     # (ops/grouped.GROUPED_MIN_SIGMA), so seed three deterministic
     # large-alphabet cases up front (int-family only; mapped families
@@ -128,26 +98,25 @@ def main():
             ("ANSsint-80", "forced-ramp",
              (np.arange(20000, dtype=np.uint32) % 12289)),
             # tail-escape recoding: byte-aligned zero-loss tail folds
-            # the alphabet under 2^13 -> the SEARCH kernel decodes it
+            # the alphabet under 2^13
             ("ANS", "forced-escape",
              np.concatenate([
                  np.repeat(np.arange(2048, dtype=np.uint32), 8),
                  np.tile(np.arange(2048, 2048 + 10240,
                                    dtype=np.uint32), 2)])),
-            # anchored value planes: dense alphabet, alternating-freq
-            # tail (escape declines) -> grouped with per-group padded
-            # rank planes
+            # dense alphabet, alternating-freq tail (escape declines)
+            # -> grouped layout
             ("ANS", "forced-anchored",
              np.concatenate([
                  np.arange(12288, dtype=np.uint32),
                  np.arange(0, 12288, 2, dtype=np.uint32)])),
         ]
     for name, case_name, data in forced:
-        want = "search" if case_name == "forced-escape" else "grouped"
+        want = "escape" if case_name == "forced-escape" else "grouped"
         try:
-            engines = run_case(name, case_name, data)
-            assert want in engines, \
-                f"{case_name}: expected the {want} engine, got {engines}"
+            kind = run_case(name, case_name, data)
+            assert kind == want, \
+                f"{case_name}: expected {want} tables, got {kind}"
         except Exception as e:  # noqa: BLE001 - report + count
             failed += 1
             print(f"FAIL {name:10s} {case_name}: "
@@ -155,8 +124,7 @@ def main():
             if not args.keep_going:
                 sys.exit(1)
             continue
-        for e in engines:
-            counts[e] = counts.get(e, 0) + 1
+        counts[kind] = counts.get(kind, 0) + 1
 
     for i in range(args.cases):
         name = names[int(rng.integers(len(names)))]
@@ -165,7 +133,7 @@ def main():
         if len(np.unique(data)) < 2:
             data[0] ^= 1
         try:
-            engines = run_case(name, case_name, data)
+            kind = run_case(name, case_name, data)
         except Exception as e:  # noqa: BLE001 - report + count
             failed += 1
             print(f"FAIL {name:10s} {case_name}: "
@@ -173,13 +141,12 @@ def main():
             if not args.keep_going:
                 sys.exit(1)
             continue
-        for e in engines or ["xla-only"]:
-            counts[e] = counts.get(e, 0) + 1
+        counts[kind] = counts.get(kind, 0) + 1
         if (i + 1) % 5 == 0:
-            print(f"  {i + 1}/{args.cases} engines={counts} "
+            print(f"  {i + 1}/{args.cases} tables={counts} "
                   f"fail={failed}", flush=True)
     print(f"done: {args.cases - failed} ok, {failed} failed; "
-          f"kernel coverage {counts}")
+          f"table coverage {counts}")
     sys.exit(1 if failed else 0)
 
 

@@ -40,10 +40,11 @@ sys.path.insert(0, __file__.rsplit("/", 2)[0])
 
 import numpy as np
 
-from ans_tpu.reference_model import parity, rans_compat as rc
+from lane_ans.reference_model import parity, rans_compat as rc
 
 REF_INCLUDE = "/root/reference/include"
-BIN = os.environ.get("ANS_TPU_REF_DUMP", "/tmp/ref_dump")
+BIN = os.environ.get("ANS_REF_DUMP",
+                     os.path.join(tempfile.gettempdir(), "ref_dump"))
 TIMEOUT = 30  # seconds per ref_dump invocation (hang backstop; real
 # cases at these sizes take well under a second)
 
@@ -63,7 +64,7 @@ def our_codec(method: str):
     if method == "byte":
         return rc.AnsByte()
     if method == "shuff":
-        from ans_tpu.reference_model.shuff_compat import ShuffCompat
+        from lane_ans.reference_model.shuff_compat import ShuffCompat
         return ShuffCompat()
     if method == "int":
         return rc.AnsInt()

@@ -34,8 +34,8 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--n", type=int, default=100_000_000)
     args = ap.parse_args()
-    from ans_tpu import native
-    from ans_tpu.reference_model import interp
+    from lane_ans import native
+    from lane_ans.reference_model import interp
 
     rng = np.random.default_rng(0)
     seq = clustered(rng, args.n)
